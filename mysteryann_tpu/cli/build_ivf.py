@@ -1,7 +1,7 @@
 """IVF index build CLI.
 
 No reference counterpart (the reference builds graphs only) — the IVF
-index is TPU-native surface for corpora past one chip's f32 HBM
+index is extra surface for corpora past one device's f32 memory
 (BASELINE.md 50M table). Builds k-means cluster blocks from an .fbin
 corpus and persists the index (`IVFIndex.save`); serve it with
 `msann-search-ivf`.

@@ -33,9 +33,9 @@ def main(argv=None) -> int:
         knn = read_knn_ibin(args.learn_base_nn_path, expected_k=args.M_sq)
     else:
         print(f"computing exact train->base kNN (k={args.M_sq}) on device")
-        # highest precision: the build input must be exact, not
-        # MXU-bf16-rounded (near-tie neighbors swap order otherwise,
-        # diverging from a compute-gt-produced file)
+        # highest precision: the build input must be exact, not rounded
+        # by reduced-precision matmul passes (near-tie neighbors swap
+        # order otherwise, diverging from a compute-gt-produced file)
         _, knn = exact_knn(train_q, base, k=args.M_sq, metric=args.dist,
                            query_batch=args.query_batch,
                            precision="highest")

@@ -4,7 +4,7 @@ Flag vocabulary mirrors the reference drivers
 (reference tests/test_build_roargraph.cpp:34-68,
 tests/test_search_roargraph.cpp:70-120) so shell scripts written for the
 reference port with a rename. ``--num_threads`` is accepted for
-compatibility; device parallelism on TPU comes from batching, not host
+compatibility; device parallelism comes from batching, not host
 threads.
 """
 

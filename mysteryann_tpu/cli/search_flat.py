@@ -1,7 +1,7 @@
-"""Flat (exact, MXU brute-force) search CLI.
+"""Flat (exact, brute-force) search CLI.
 
-No reference counterpart — on TPU the exact scan is a serving mode in its
-own right (see mysteryann_tpu/flat.py). Same report schema as the graph
+No reference counterpart — on an accelerator the exact scan is a serving
+mode in its own right (see mysteryann_tpu/flat.py). Same report schema as the graph
 search CLIs; recall should be ~1.0 by construction.
 """
 
@@ -24,12 +24,14 @@ from mysteryann_tpu.utils.metrics import compute_recall, compute_rderr
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     add_common_search_flags(p)
-    p.add_argument("--tile", type=int, default=262144)
+    p.add_argument("--tile", type=int, default=None,
+                   help="rows per score block (default: sized from "
+                        "device memory)")
     p.add_argument("--oversample", type=int, default=2)
     p.add_argument("--precision", choices=("f32", "bf16", "int8"),
                    default="f32",
                    help="bf16: half-byte resident table + exact f32 "
-                        "rerank (the multi-tile-scale champion); int8: "
+                        "rerank; int8: "
                         "global-scale scan + exact f32 rerank")
     args = p.parse_args(argv)
 

@@ -27,8 +27,8 @@ def main(argv=None) -> int:
     p.add_argument("--projection_index_save_path", required=True)
     p.add_argument("--engine", default="classic",
                    choices=("classic", "fused"),
-                   help="fused = int8 inline neighbor blocks, one DMA "
-                        "per expansion (index must fit the packed table)")
+                   help="fused = int8 inline neighbor blocks, one row "
+                        "gather per expansion (index must fit the packed table)")
     p.add_argument("--seeds", type=int, default=0,
                    help="per-query entry points from a coarse sample scan "
                         "(replaces the medoid walk; see search/seeding.py)")
@@ -40,7 +40,7 @@ def main(argv=None) -> int:
                         "step (amortizes pool maintenance)")
     p.add_argument("--bits", type=int, default=8, choices=(8, 4),
                    help="fused traversal-row quantization; 4 halves the "
-                        "per-expansion DMA bytes (reported distances stay "
+                        "per-expansion gather bytes (reported distances stay "
                         "exact f32 via the rerank)")
     args = p.parse_args(argv)
 

@@ -2,7 +2,7 @@
 
 The reference stores the graph as ``std::vector<std::vector<uint32_t>>``
 (reference include/index_bipartite.h:140-170) and traverses it by pointer
-chasing. On TPU the graph is a dense ``int32 [N, M_pad]`` tensor in HBM with
+chasing. Here the graph is a dense ``int32 [N, M_pad]`` device tensor with
 a sentinel (``N``) marking padding slots, so thousands of queries gather
 neighbor rows in lockstep.
 

@@ -26,6 +26,7 @@ import os
 import struct
 from typing import Optional, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -254,21 +255,20 @@ class BipartiteSearcher:
                   query_batch: int = 512, warmup: int = 1,
                   two_hop_chunk: int = 0) -> dict:
         """Device-timed sweep row, same methodology as Searcher.benchmark
-        (queries staged in HBM, results blocked on device, fence-ended
-        timed region — host download excluded)."""
+        (queries staged in device memory, results blocked on device —
+        host download excluded)."""
         import time
-
-        from mysteryann_tpu.utils.fence import fence
 
         q = prepare_vectors(np.asarray(queries, np.float32), self.metric)
         qb = min(query_batch, q.shape[0])
-        for _ in range(warmup):
-            fence(self.search(q[:qb], k, L, query_batch=qb,
-                              two_hop_chunk=two_hop_chunk, device_out=True))
+        for _ in range(warmup):  # the timed call itself (see FlatIndex)
+            jax.block_until_ready(self.search(
+                q, k, L, query_batch=qb, two_hop_chunk=two_hop_chunk,
+                device_out=True))
         t0 = time.perf_counter()
         out = self.search(q, k, L, query_batch=qb,
                           two_hop_chunk=two_hop_chunk, device_out=True)
-        fence(out)
+        jax.block_until_ready(out)
         dt = time.perf_counter() - t0
         ids, dists, cmps, hops = (np.asarray(o) for o in out)
         return {

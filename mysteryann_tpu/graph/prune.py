@@ -1,4 +1,4 @@
-"""Batched occlusion pruning — the RoarGraph edge-selection rule on TPU.
+"""Batched occlusion pruning — the RoarGraph edge-selection rule, batched.
 
 All four reference prune functions share one shape (reference
 src/index_bipartite.cpp: PruneBiSearchBaseGetBase:1612-1694,
@@ -27,7 +27,10 @@ PruneProjectionBaseSearchCandidates:1846-1940):
 The scan is inherently sequential in the kept set (SURVEY §7 hard part #2),
 but only ``C`` steps long; it runs as a ``fori_loop`` over a precomputed
 candidate-pairwise distance tile ``[B, C, C]`` so the whole batch prunes in
-lockstep with all distances coming from one MXU contraction.
+lockstep with all distances coming from one batched matmul. Distances
+are taken at full f32 precision (``Precision.HIGHEST``), as the
+reference computes them: the [B, C, C] tile is small, so the cost is
+low, and reduced-precision passes would flip near-tie keep decisions.
 """
 
 from __future__ import annotations
@@ -39,7 +42,6 @@ import jax
 import jax.numpy as jnp
 
 from mysteryann_tpu.ops.distances import Metric
-from mysteryann_tpu.ops.gather import gather_rows_any
 
 _INF = jnp.float32(jnp.inf)
 
@@ -67,12 +69,13 @@ def batched_occlusion_prune(
     ``gather_fn`` decouples the scan from vector storage so sharded
     callers (parallel.sharded_build — base row-sharded over ``mp``,
     vectors fetched by owner-masked psum) run the IDENTICAL keep-scan:
-    exact single-device/sharded agreement holds by construction.
+    single-device and sharded results agree wherever their distances
+    do (see parallel/sharded_build.py for where they need not).
 
     ``cand_vecs`` ([B, C, d], aligned with ``cand_ids``) reuses the
     candidate rows a caller already fetched (dists_to_src
-    ``return_vecs=True``): the HBM row gather is the descriptor-bound
-    cost of the prune phases, and without this every batch fetched the
+    ``return_vecs=True``): the row gather is the main memory cost of
+    the prune phases, and without this every batch fetched the
     same B*C rows twice. The in-tensor reorder by the sort permutation
     yields bit-identical vectors to a post-sort gather.
     """
@@ -98,20 +101,20 @@ def batched_occlusion_prune(
         [jnp.zeros((B, 1), jnp.bool_), id_s[:, 1:] == id_s[:, :-1]], axis=1)
     valid_s = valid_s & ~dup
 
-    # candidate-pairwise distances [B, C, C] — one batched MXU contraction.
-    # clip BOTH ends: the valid mask admits negative ids as input, and
-    # the pallas gather's contract is indices in [0, N)
+    # candidate-pairwise distances [B, C, C] — one batched contraction.
+    # clip BOTH ends: the valid mask admits negative ids as input
     if cand_vecs is not None:
         vecs = jnp.take_along_axis(cand_vecs, perm[:, :, None], axis=1)
     else:
         flat_ids = jnp.clip(id_s, 0, n - 1).reshape(-1)
         if gather_fn is None:
-            vecs = gather_rows_any(base, flat_ids)
+            vecs = jnp.take(base, flat_ids, axis=0)
         else:
             vecs = gather_fn(flat_ids)
         vecs = vecs.reshape(B, C, vecs.shape[-1])                 # [B, C, d]
     ip = jnp.einsum("bcd,bed->bce", vecs, vecs,
-                    preferred_element_type=jnp.float32)
+                    preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST)
     if metric in (Metric.IP, Metric.COSINE):
         pd = -ip
     else:
@@ -201,16 +204,17 @@ def dists_to_src(src_vecs: jax.Array, cand_ids: jax.Array,
 
     ``return_vecs=True`` also returns the gathered candidate rows
     [B, C, d] so the caller can hand them to `batched_occlusion_prune`
-    (``cand_vecs=``) instead of re-fetching the same rows from HBM.
+    (``cand_vecs=``) instead of re-fetching the same rows.
     """
     metric = Metric.parse(metric)
     n = base.shape[0] if base is not None else n_base
     flat = jnp.clip(cand_ids, 0, n - 1).reshape(-1)
-    vecs = (gather_rows_any(base, flat) if gather_fn is None
+    vecs = (jnp.take(base, flat, axis=0) if gather_fn is None
             else gather_fn(flat)).reshape(
         cand_ids.shape + (src_vecs.shape[-1],))
     ip = jnp.einsum("bcd,bd->bc", vecs, src_vecs,
-                    preferred_element_type=jnp.float32)
+                    preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST)
     if metric in (Metric.IP, Metric.COSINE):
         d = -ip
     else:

@@ -8,7 +8,7 @@ Build/Search/Save/Load surface, dispatches Metric→Distance (index.cpp:
 holds the vector data pointers. Here the metric dispatch lives in
 `ops.distances.Metric`/`prepare_vectors` (cosine = normalize-then-IP,
 exactly the reference's convention), and the surface splits in two —
-TPU-idiomatically, index DATA (host/HBM tensors + save/load) is separate
+index DATA (host/device tensors + save/load) is separate
 from the jitted SEARCH engine bound to it:
 
 | reference                  | here                                      |

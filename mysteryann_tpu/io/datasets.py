@@ -1,6 +1,6 @@
 """Dataset registry + download/prepare pipeline.
 
-TPU-native counterpart of the reference's dataset plumbing
+Library counterpart of the reference's dataset plumbing
 (reference prepare_data.sh:1-67, export_fbin_from_npy.py:1-42,
 prepare_for_clip_webvid.py:1-140): the same three cross-modal corpora,
 the same byte-range slicing trick for partial downloads of the Yandex

@@ -134,7 +134,7 @@ def data_align(x: np.ndarray, multiple: int = 128) -> np.ndarray:
 
     Counterpart of the reference's `data_align` (reference
     include/efanna2e/util.h:37-75), which pads dim to a multiple of 8
-    floats for AVX loads; the TPU analogue is the 128-wide lane dim.
+    floats for AVX loads; here the default is 128, a whole tile width.
     Zero padding is metric-safe for L2/IP/cosine (pads contribute 0 to
     every product/difference).
     """

@@ -45,8 +45,8 @@ def lib():
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        # a shipped .so without the .cpp source is fine — rebuild only
-        # when the source exists and is newer
+        # the .so is a build product (never committed): build it on
+        # first use, and again whenever the source is newer
         if not os.path.exists(_SO) or (
                 os.path.exists(_SRC)
                 and os.path.getmtime(_SO) < os.path.getmtime(_SRC)):

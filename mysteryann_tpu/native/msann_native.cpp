@@ -1,6 +1,6 @@
 // Native host-side runtime: index (de)serialization and adjacency packing.
 //
-// TPU-native counterpart of the reference's C++ persistence layer
+// Counterpart of the reference's C++ persistence layer
 // (reference src/index_bipartite.cpp:2606-2619 SaveProjectionGraph,
 // :2097-2117 LoadProjectionGraph, :2045-2071 bipartite Save/Load) and of
 // its aligned loaders (include/efanna2e/util.h:180-211): the device wants

@@ -1,37 +1,53 @@
-"""Multi-chip RoarGraph build — every heavy phase sharded over the mesh.
+"""Multi-device RoarGraph build — every heavy phase sharded over the mesh.
 
 The reference's build is its biggest compute: two OpenMP hot loops over
 shared memory (src/index_bipartite.cpp:1059-1097 phase A over training
 queries, :1192-1220 phase D over base nodes). This module is the
-mesh-parallel equivalent, shaped so a corpus larger than one chip's HBM
-can be *built*, not just served:
+mesh-parallel equivalent, shaped so a corpus larger than one device's
+memory can be *built*, not just served:
 
 - big tensors are ``mp``-row-sharded: base vectors ``[N/mp, d]`` and the
   live supply adjacency ``[N/mp, 2M]``;
 - work items (phase-A queries, phase-D node batches) are ``dp``-sharded;
 - vectors never leave their owner shard: every distance is computed from
   owner-masked partials combined with ``psum`` over ``mp`` (each id has
-  exactly one owner, so the psum adds zeros to the owner's value — the
-  result is BIT-IDENTICAL to single-device arithmetic);
+  exactly one owner, so the psum adds zeros to the owner's value);
 - per-row fold updates are computed replicated (they are chunk-sized,
   small) and applied ownership-masked on each shard.
 
-Exactness contract: `sharded_build_roargraph(mesh, ...)` produces the
-same adjacency as `graph.build_roargraph` for identical inputs **with
+Agreement with the one-device build: `sharded_build_roargraph(mesh, ...)`
+runs the same algorithm as `graph.build_roargraph` **with
 ``connectivity_engine="classic"``**, at every ``connectivity_expand``
-(the distributed beam mirrors the single-chip multi-pop selection
-bit-for-bit) — pinned by tests/test_sharded_build.py. Phase D here always searches through the
-distributed classic engine; the fused byte-row engine is a single-chip
-accelerator (its int8 search visits different nodes, so a fused
-single-device build is a different — equally valid — graph).
-``connectivity_engine="fused"`` is rejected; ``"auto"`` resolves to
-classic (unlike single-device auto, which may pick fused). The occlusion keep-scan itself is the
-single-device kernel (graph.prune.batched_occlusion_prune) with only the
-vector gather swapped (`gather_fn`), so agreement holds by construction.
+(the distributed beam mirrors the single-chip multi-pop selection), at
+the same precision (f32 at HIGHEST) and the same prune batch shapes.
+The occlusion keep-scan is the single-device kernel
+(graph.prune.batched_occlusion_prune) with only the vector gather
+swapped (`gather_fn`). On the CPU the two adjacencies are identical
+(pinned by tests/test_sharded_build.py). On GPUs they are not: at
+mp=4 the sharded programs round some f32 distances differently from
+the one-device ones, and each such near-tie can flip a traversal or a
+prune decision. The likely cause is that XLA compiles a contraction
+that feeds an all-reduce into another fusion, with another summation
+order. Measured at 1M x 128 on 4x H100 with the bench recipe: every
+phase-D search row of a batch carries some distance that differs from
+one card, yet 98.9% of the pools are identical, and 99.976% of phase-A
+prune rows; the final adjacency has 99.726% of rows identical, recall@10
+.9611 vs .9612. On one H100 at mp=1, where no all-reduce remains, those
+primitives are identical and 999,999 of 1,000,000 rows are.
+`chip_smoke.py --four-cards` holds the build to >= 99.5% of rows and
+recall within 0.002.
 
-Scale note (single host): ``mp`` shards HBM across one host's chips over
-ICI. The DCN multi-host extension is a mesh-construction concern, not an
-algorithm change — see docs/ARCHITECTURE.md "Multi-host meshes".
+Phase D here always searches through the distributed classic engine;
+the fused byte-row engine is a single-chip accelerator (its int8 search
+visits different nodes, so a fused single-device build is a different —
+equally valid — graph). ``connectivity_engine="fused"`` is rejected;
+``"auto"`` resolves to classic (unlike single-device auto, which may
+pick fused).
+
+Scale note (single host): ``mp`` shards device memory across one host's
+cards, joined all to all by NVLink. The multi-host extension is a
+mesh-construction concern, not an algorithm change — see
+docs/ARCHITECTURE.md "Multi-host meshes".
 """
 
 from __future__ import annotations
@@ -49,7 +65,6 @@ from jax import shard_map
 
 from mysteryann_tpu.graph.adjacency import PaddedGraph
 from mysteryann_tpu.graph.prune import batched_occlusion_prune, dists_to_src
-from mysteryann_tpu.ops.gather import gather_rows_any
 from mysteryann_tpu.ops.distances import Metric, prepare_vectors
 from mysteryann_tpu.parallel.sharded_search import distributed_beam_search
 from mysteryann_tpu.utils.params import BuildConfig
@@ -64,12 +79,11 @@ _INF = jnp.float32(jnp.inf)
 
 def _owner_gather(flat_ids, b_shard, n, shard_n):
     """vecs for global ids from an mp-row-sharded base — exact (see module
-    docstring). Runs inside shard_map; local rows come through the pallas
-    DMA gather on TPU (ops/gather.py)."""
+    docstring). Runs inside shard_map."""
     my = jax.lax.axis_index("mp")
     off = my * shard_n
     owned = (flat_ids >= off) & (flat_ids < off + shard_n)
-    loc = gather_rows_any(b_shard, jnp.clip(flat_ids - off, 0, shard_n - 1))
+    loc = jnp.take(b_shard, jnp.clip(flat_ids - off, 0, shard_n - 1), axis=0)
     return jax.lax.psum(jnp.where(owned[:, None], loc, 0.0), "mp")
 
 
@@ -305,7 +319,7 @@ def sharded_build_roargraph(
     base_prep = prepare_vectors(base, metric)
     base_sh = jax.device_put(base_prep, NamedSharding(mesh, P("mp", None)))
     # medoid on the replicated array reproduces single-device arithmetic
-    # exactly; at >HBM scale pass a precomputed ep via cfg instead
+    # exactly; past one device's memory pass a precomputed ep via cfg
     ep = compute_medoid(base_prep)
     del base_prep
     knn = np.asarray(learn_base_knn[:, : cfg.M_sq], np.int64)
@@ -369,9 +383,17 @@ def _cap_degree_sharded(mesh, base_sh, rows, cap, metric, batch, n):
     out[ok] = rows[ok][:, :cap]
     over = np.nonzero(~ok)[0]
     if over.size:
+        # prune at the one-card shape: below 4M nodes `_cap_degree` pads
+        # its blocks to 32768 rows, so its batch never shrinks to fewer
+        # rows (pad rows prune row 0 and are dropped)
+        k = over.size
+        if n < 4_000_000:
+            k = max(k, min(batch, 1 << 15))
+        ids = np.zeros(k, np.int32)
+        ids[: over.size] = over
         out[over] = np.asarray(sharded_prune_rows(
-            mesh, base_sh, over.astype(np.int32), rows[over], cap, metric,
-            batch, fill=True, n=n))
+            mesh, base_sh, ids, rows[ids], cap, metric, batch, fill=True,
+            n=n))[: over.size]
     return out
 
 
@@ -409,8 +431,10 @@ def _merge_forward_reverse_sharded(mesh, base_sh, own, rev, cap, metric,
         c = cand[rows]
         order = np.argsort(c == n, axis=1, kind="stable")
         out[rows] = np.take_along_axis(c, order, axis=1)[:, :cap]
-    if (~easy).any():
-        rows = np.nonzero(~easy)[0]
+    hard = np.nonzero(~easy)[0]
+    OB = 1 << 15  # the one-card merge's block: the same prune shapes
+    for s in range(0, hard.size, OB):
+        rows = hard[s: s + OB]
         out[rows] = np.asarray(sharded_prune_rows(
             mesh, base_sh, rows.astype(np.int32), cand[rows], cap, metric,
             batch, fill=True, n=n))
@@ -425,7 +449,8 @@ def _connectivity_pass_sharded(mesh, base_sh, projection, ep, cfg, metric,
     incremental rounds, arrival-order fold, overflow prune+refill — with
     every device step swapped for its sharded twin (incl. the
     pass-dependent round schedule `_rounds_for_pass`, so multi-pass
-    sharded builds stay bit-exact vs single-device)."""
+    sharded builds agree with single-device ones; see the module
+    docstring)."""
     from mysteryann_tpu.graph.roargraph import _refill_rows_device
 
     n, d = base_sh.shape
@@ -436,8 +461,9 @@ def _connectivity_pass_sharded(mesh, base_sh, projection, ep, cfg, metric,
     sb = -(-sb // dp) * dp
     eps_j = jnp.asarray([ep], jnp.int32)
     H = cfg.history_mult * L
-    from mysteryann_tpu.graph.roargraph import _rounds_for_pass
+    from mysteryann_tpu.graph.roargraph import _prune_batch, _rounds_for_pass
     rounds = _rounds_for_pass(cfg, pass_i)
+    pb = -(-max(dp, _prune_batch(cfg, n)) // dp) * dp
     chunks = [-(-n // rounds)] * rounds
     W = 2 * M
 
@@ -470,7 +496,7 @@ def _connectivity_pass_sharded(mesh, base_sh, projection, ep, cfg, metric,
                 axis=2) & (pool < n)
             pruned = sharded_prune_rows(
                 mesh, base_sh, node_ids, pool, M, metric,
-                max(dp, min(cfg.search_batch, 1024)), fill=False,
+                pb, fill=False,
                 not_seedable=ns, n=n)
             slot = jnp.arange(sl - r0, sl - r0 + sb, dtype=jnp.int32)
             slot = jnp.where((slot >= 0) & (slot < chunk), slot, chunk)
@@ -488,7 +514,7 @@ def _connectivity_pass_sharded(mesh, base_sh, projection, ep, cfg, metric,
             cand = jnp.concatenate([own_rows, rev_rows], axis=1)
             pruned = sharded_prune_rows(
                 mesh, base_sh, over_ids, cand, M, metric,
-                max(dp, min(cfg.search_batch, 1024)), fill=False, n=n)
+                pb, fill=False, n=n)
             merged = _refill_rows_device(pruned, cand, n)
             scat = np.full(K, n, np.int32)
             scat[: over.size] = over
@@ -511,7 +537,9 @@ def _connectivity_pass_sharded(mesh, base_sh, projection, ep, cfg, metric,
             jnp.asarray(supply[st: st + SLAB]), cap=M, n=n))
     over = np.nonzero(deg > M)[0]
     if over.size:
-        K = max(1024, 1 << (int(over.size) - 1).bit_length())
+        # at least one prune batch: the one-card epilogue prunes padded
+        # blocks at `pb` rows, and a shorter batch compiles other shapes
+        K = max(pb, 1 << (int(over.size) - 1).bit_length())
         over_ids = np.zeros(K, np.int32)
         over_ids[: over.size] = over
         cand = supply[over_ids]
@@ -520,7 +548,7 @@ def _connectivity_pass_sharded(mesh, base_sh, projection, ep, cfg, metric,
             axis=2) & (cand < n)
         pruned = np.asarray(sharded_prune_rows(
             mesh, base_sh, over_ids, cand, M, metric,
-            max(dp, min(cfg.search_batch, 1024)), fill=False,
+            pb, fill=False,
             not_seedable=ns, n=n))
         final[over] = pruned[: over.size]
     return final
@@ -566,7 +594,8 @@ def _ensure_reachability_sharded(mesh, final, ep, base_sh, metric, log):
             pad_ids[: blk.size] = blk
             q = take_rows_sharded(mesh, base_sh, pad_ids)
             _, cc = sharded_exact_knn(mesh, q, base_sh, k=kk,
-                                      metric=metric)
+                                      metric=metric, tile=131072,
+                                      precision="highest")
             cand[s: s + blk.size] = np.asarray(cc)[: blk.size]
         A = 3
         n_found = np.zeros(stranded.size, np.int64)

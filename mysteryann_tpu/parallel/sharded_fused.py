@@ -1,15 +1,15 @@
 """mp-sharded fused-table serving — the 10M+ sublinear engine.
 
-The single-chip fused engine (search/fused.py) is the sublinear serving
-mode of record at 1M-class scale, but its byte-row table outgrows one
-chip's HBM at ~4-6M nodes (bits=4, M=32, d=128 → 3 KB/row → 28.6 GB at
-10M). This module row-shards the table over the ``mp`` mesh axis —
+The single-device fused engine (search/fused.py) is the sublinear
+serving mode at 1M-class scale, but its byte-row table grows with N
+(bits=4, M=32, d=128 → 3 KB/row → 28.6 GB at 10M) and outgrows one
+device's memory. This module row-shards the table over the ``mp`` mesh axis —
 shard j owns rows [j·sn, (j+1)·sn) — and runs the SAME lockstep beam
 replicated across ``mp`` with one owner-masked ``psum`` per step:
 
   1. every shard computes the step's expansion ids (replicated pool
      state — identical on every mp peer, no communication);
-  2. the owner shard of each expanded node DMA-gathers its local byte
+  2. the owner shard of each expanded node gathers its local byte
      row, unpacks + scores the inline int8/int4 neighbors
      (`_score_packed_rows` — the same traced helper the single-chip
      engine uses, so quantized scoring cannot drift);
@@ -20,16 +20,16 @@ replicated across ``mp`` with one owner-masked ``psum`` per step:
   4. pool merge runs replicated; queries shard over ``dp`` and never
      communicate.
 
-Per-step traffic: [B/dp, expand·M] f32 + i32 ≈ KBs-to-MBs riding ICI
+Per-step traffic: [B/dp, expand·M] f32 + i32 ≈ KBs-to-MBs over NVLink
 (see parallel/mesh.py for why ``mp`` must stay within a host). The
 final exact-f32 rerank shards the base the same way (owner-masked ip
 psum). The coarse seed sample stays REPLICATED — at 1-in-8 of a 10M
-corpus it is 320 MB bf16 per chip, noise next to the table shard; shard
+corpus it is 320 MB bf16 per device, noise next to the table shard; shard
 it too if a >100M corpus ever needs it.
 
 Reference parity: this serves the same RoarGraph the reference serves
 single-host (src/index_bipartite.cpp:2311-2420); the sharding axis is
-the TPU-native answer to "the index outgrew one memory" — which the
+the device answer to "the index outgrew one memory" — which the
 reference cannot do at all (single-node DRAM only).
 """
 
@@ -46,7 +46,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from mysteryann_tpu.ops.distances import Metric, prepare_vectors
-from mysteryann_tpu.ops.gather import gather_rows, gather_rows_any
 from mysteryann_tpu.search.fused import (_bitonic_merge_triple, _pack_chunk,
                                          _row_bytes, _score_packed_rows)
 from mysteryann_tpu.search.seeding import make_seed_sample, seed_scan
@@ -107,10 +106,11 @@ def _sharded_fused_fn(mesh: Mesh, n: int, sn: int, k: int, L: int,
             """Exact f32 scores of global ids vs q — owner-masked psum."""
             mine = (ids >= off) & (ids < off + sn) & (ids < n)
             lid = jnp.where(mine, ids - off, 0)
-            vecs = gather_rows_any(b_shard, lid.reshape(-1)).reshape(
+            vecs = jnp.take(b_shard, lid.reshape(-1), axis=0).reshape(
                 bl, kk, d)
             ip = jnp.einsum("bd,bkd->bk", q, vecs,
-                            preferred_element_type=jnp.float32)
+                            preferred_element_type=jnp.float32,
+                            precision=jax.lax.Precision.HIGHEST)
             if is_l2:
                 loc = q_sq - 2.0 * ip + jnp.sum(vecs * vecs, 2)
             else:
@@ -167,7 +167,7 @@ def _sharded_fused_fn(mesh: Mesh, n: int, sn: int, k: int, L: int,
             # sentinel row (invalid ids, zero contribution)
             mine = (cur >= off) & (cur < off + sn) & (cur < n)
             lid = jnp.where(mine, cur - off, sn)
-            rows = gather_rows(table, lid.reshape(-1))
+            rows = jnp.take(table, lid.reshape(-1), axis=0)
             nd_l, nbrs_l = _score_packed_rows(
                 q, rows, metric, q_sq, B=bl, F=F, M=M, d=d, bits=bits,
                 expand=expand)
@@ -339,12 +339,12 @@ class ShardedFusedSearcher:
 
     def benchmark(self, queries, k: int, L: int, warmup: int = 1,
                   **kw) -> dict:
-        from mysteryann_tpu.utils.fence import fence
         for _ in range(warmup):
-            fence(self.search(queries, k, L, device_out=True, **kw))
+            jax.block_until_ready(
+                self.search(queries, k, L, device_out=True, **kw))
         t0 = time.perf_counter()
         out = self.search(queries, k, L, device_out=True, **kw)
-        fence(out)
+        jax.block_until_ready(out)
         dt = time.perf_counter() - t0
         ids, dists, cmps, hops = (np.asarray(o) for o in out)
         return {"L_pq": L, "k": k, "qps": len(ids) / dt,

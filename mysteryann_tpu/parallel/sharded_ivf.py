@@ -1,8 +1,8 @@
 """mp-sharded IVF: cluster blocks row-sharded over the device mesh.
 
-Past ~60M rows/chip even int8 cluster blocks exceed one chip's HBM
-(100M x 128d s8 blocks ≈ 17 GB with capacity padding — SURVEY §2's
-T2I-100M regime; the reference has no sharded story at all, its OMP
+Past some hundreds of millions of rows even int8 cluster blocks exceed
+one device's memory (100M x 128d s8 blocks ≈ 17 GB with capacity
+padding — SURVEY §2's T2I-100M regime; the reference has no sharded story at all, its OMP
 loops stop at one host). Sharding plan, scaling-book style:
 
 - CLUSTER axis over ``mp``: each device owns nc/mp clusters' blocks +
@@ -11,8 +11,8 @@ loops stop at one host). Sharding plan, scaling-book style:
   owns (off-shard probes map to the sentinel cluster and are dropped
   by `_ivf_group`), scans them with the unchanged single-chip
   cluster-major kernel, and merges its local candidates.
-- One `all_gather` of [B, k] ids+scores per batch over ``mp`` (KBs on
-  ICI) finishes the global top-k. Vectors never cross ICI.
+- One `all_gather` of [B, k] ids+scores per batch over ``mp`` (KBs)
+  finishes the global top-k. Vectors never leave their shard.
 - Queries shard over ``dp`` (pure throughput scaling, no comm).
 
 int8 note: per-query scales make raw s32 scores comparable ACROSS
@@ -33,6 +33,7 @@ from jax import shard_map
 
 from mysteryann_tpu.ivf import (IVFIndex, _ivf_group, _ivf_merge,
                                 _ivf_scan_grouped, _ivf_scan_grouped_i8)
+from mysteryann_tpu.ops.knn import min_k
 from mysteryann_tpu.ops.distances import (Metric, pairwise_dist,
                                           prepare_vectors)
 
@@ -110,7 +111,7 @@ def _sharded_ivf_fn(mesh, k, nprobe, metric, store, cap, dim, n_base,
     nc_local = nc_pad // mp
     # every probe picks one of the GLOBAL nc_pad clusters, so a local
     # cluster's expected load is b_local*nprobe/nc_pad (dividing by
-    # nc_local would oversize qmax — and the grouped scan's MXU work —
+    # nc_local would oversize qmax — and the grouped scan's matmul work —
     # by a factor of mp)
     avg_load = max(1, b_local * nprobe // max(1, nc_pad))
     qmax = 1 << int(np.ceil(np.log2(4 * avg_load)))  # see _search_grouped
@@ -120,8 +121,7 @@ def _sharded_ivf_fn(mesh, k, nprobe, metric, store, cap, dim, n_base,
         cd = pairwise_dist(q, cents, metric=metric)
         mask = jnp.arange(cd.shape[1]) >= nc_real
         cd = jnp.where(mask[None, :], jnp.inf, cd)
-        _, top_c = jax.lax.approx_min_k(cd, k=nprobe)
-        top_c = top_c.astype(jnp.int32)
+        _, top_c = min_k(cd, nprobe)
         # keep only probes this shard owns; others -> sentinel (dropped)
         lo = jax.lax.axis_index("mp").astype(jnp.int32) * nc_local
         in_shard = (top_c >= lo) & (top_c < lo + nc_local)
@@ -141,7 +141,7 @@ def _sharded_ivf_fn(mesh, k, nprobe, metric, store, cap, dim, n_base,
                                        metric=metric, cap=cap, dim=dim,
                                        n_base=n_base)
             ids, vals = _ivf_merge(ci, cv, slots, valid, k=k)
-        # tiny cross-shard merge: [mp, Bl, k] ids+scores on ICI
+        # tiny cross-shard merge: [mp, Bl, k] ids+scores
         gi = jax.lax.all_gather(ids, "mp")
         gv = jax.lax.all_gather(vals, "mp")
         ci2 = jnp.moveaxis(gi, 0, 1).reshape(ids.shape[0], mp * k)

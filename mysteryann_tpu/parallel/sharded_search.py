@@ -1,23 +1,23 @@
-"""Multi-chip search.
+"""Multi-device search.
 
-Two scaling modes, matching SURVEY §2's "TPU-native equivalents" note:
+Two scaling modes (SURVEY §2's accelerator-equivalents note):
 
-- `query_parallel_search`: the index fits one chip → replicate base+graph,
+- `query_parallel_search`: the index fits one device → replicate base+graph,
   shard the query stream over every device (pure DP — the analogue of the
   reference's `omp parallel for` over queries,
   tests/test_search_roargraph.cpp:203-209).
 
-- `distributed_beam_search`: the index does NOT fit one chip (T2I-100M
+- `distributed_beam_search`: the index does NOT fit one device (T2I-100M
   class) → base vectors and the padded adjacency are row-sharded over the
   ``mp`` mesh axis, queries sharded over ``dp``. Each lockstep expansion:
 
     1. the owner shard of the expanded node contributes its neighbor row;
-       one ``psum`` over ``mp`` broadcasts it (int32 [B, M] — KBs on ICI);
+       one ``psum`` over ``mp`` broadcasts it (int32 [B, M] — KBs);
     2. every shard gathers vectors only for the neighbor ids *it owns*,
        computes partial distances, and a second ``psum`` combines them
-       (f32 [B, M]) — vectors never cross ICI, only distances do;
+       (f32 [B, M]) — vectors never leave their shard, only distances do;
     3. pool merge + visited-bitmask update run replicated per dp-shard
-       (cheap VPU sort; identical on every mp peer, no extra comm).
+       (cheap sort; identical on every mp peer, no extra comm).
 
   The per-node mutexes of the reference have no analogue: state is
   functional and each query's pool is private.
@@ -82,8 +82,10 @@ def distributed_beam_search(
     ``expand``: nodes popped per lockstep step (the single-chip engine's
     knob — pool-maintenance sorts amortize over `expand` expansions).
     Selection/merge logic mirrors `beam_search` exactly, so traversal is
-    bit-identical to the single-device engine at every expand (pinned by
-    tests/test_sharded_build.py)."""
+    bit-identical to the single-device engine at every expand on the CPU
+    (pinned by tests/test_sharded_build.py). On GPUs the psum'd
+    distances may round differently (parallel/sharded_build.py), which
+    reorders near-ties."""
     metric = Metric.parse(metric)
     if visited_mode not in ("bitmask", "merge", "pool"):
         raise ValueError(f"unknown visited_mode {visited_mode!r}")
@@ -145,7 +147,8 @@ def _dist_search_fn(mesh: Mesh, n: int, shard_n: int, k: int, L: int,
             loc_ids = jnp.clip(ids - off, 0, shard_n - 1)
             vecs = jnp.take(b_shard, loc_ids, axis=0)      # [bl, M, d]
             ip = jnp.einsum("bd,bmd->bm", q, vecs,
-                            preferred_element_type=jnp.float32)
+                            preferred_element_type=jnp.float32,
+                            precision=jax.lax.Precision.HIGHEST)
             if is_l2:
                 dloc = q_sq[:, None] - 2.0 * ip + b_sq[loc_ids]
             else:

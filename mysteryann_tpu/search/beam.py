@@ -1,6 +1,6 @@
 """Batched lockstep beam search over a padded graph.
 
-TPU-native recast of the reference's one-query-at-a-time best-first loop
+Batched recast of the reference's one-query-at-a-time best-first loop
 (`SearchRoarGraph`, reference src/index_bipartite.cpp:2311-2420):
 
 - the sorted fixed-capacity ``NeighborPriorityQueue`` (reference
@@ -8,7 +8,7 @@ TPU-native recast of the reference's one-query-at-a-time best-first loop
   through a ``lax.while_loop``, merged each step with ``jax.lax.sort``;
 - the epoch-tagged ``VisitedListPool`` (reference
   include/visited_list_pool.h) becomes a per-query bitmask
-  ``uint32 [B, ceil(N/32)]`` in HBM, updated with duplicate-safe
+  ``uint32 [B, ceil(N/32)]`` in device memory, updated with duplicate-safe
   scatter-OR;
 - ``closest_unexpanded()`` becomes an argmax over the unexpanded mask of
   the sorted pool (first True = smallest distance);
@@ -32,7 +32,6 @@ import jax
 import jax.numpy as jnp
 
 from mysteryann_tpu.ops.distances import Metric
-from mysteryann_tpu.ops.gather import gather_rows_any
 
 _INF = jnp.float32(jnp.inf)
 
@@ -50,11 +49,12 @@ class SearchResult(NamedTuple):
 def _batch_dist(q: jax.Array, vecs: jax.Array, metric: Metric) -> jax.Array:
     """Distances query[b] → vecs[b, m]: [B, d] x [B, M, d] -> [B, M].
 
-    L2 norms are recomputed from the gathered vectors — cheap VPU work;
-    an element-gather from a precomputed norm table would run at XLA's
-    serial-gather rate and dwarf the vector fetch.
+    L2 norms are recomputed from the gathered vectors, which are already
+    at hand, instead of gathered from a norm table. Full f32 precision:
+    these are the distances the search reports.
     """
-    ip = jnp.einsum("bd,bmd->bm", q, vecs, preferred_element_type=jnp.float32)
+    ip = jnp.einsum("bd,bmd->bm", q, vecs, preferred_element_type=jnp.float32,
+                    precision=jax.lax.Precision.HIGHEST)
     if metric in (Metric.IP, Metric.COSINE):
         return -ip
     qn = jnp.sum(q * q, axis=-1, keepdims=True)
@@ -70,7 +70,7 @@ def _scatter_or_bits(visited: jax.Array, words: jax.Array, bits: jax.Array,
     positions, so within one row the combined contribution for a word is the
     *sum* of its members' bits == their OR. After combining, duplicate
     scatter indices write identical values, making `.at[].set` well-defined.
-    O(M^2) combine — M is the graph degree (~32-64), cheap on the VPU.
+    O(M^2) combine — M is the graph degree (~32-64), cheap elementwise work.
     """
     bits = jnp.where(active, bits, jnp.uint32(0))
     same_word = words[:, :, None] == words[:, None, :]          # [B, M, M]
@@ -118,7 +118,7 @@ def beam_search(
 
     - ``"bitmask"``: per-query uint32 bitmask over all N base points — the
       exact analogue of the reference's VisitedListPool; an id is scored at
-      most once (reference-parity ``cmps``). Costs [B, N/32] HBM state and
+      most once (reference-parity ``cmps``). Costs [B, N/32] device state and
       a scatter per step.
     - ``"pool"``: membership test against the candidate pool only. Sound
       because re-insertion of a dropped candidate is impossible — the
@@ -153,9 +153,9 @@ def beam_search(
         max_hops = 4 * L + 32
     n_words = -(-n_base // 32) if use_bitmask else 1
 
-    def gather_vecs(ids):  # ids int32 [...], clamped pallas DMA gather
+    def gather_vecs(ids):  # ids int32 [...], clamped row gather
         flat = jnp.minimum(ids, n_base - 1).reshape(-1)
-        return gather_rows_any(base, flat).reshape(ids.shape + (d,))
+        return jnp.take(base, flat, axis=0).reshape(ids.shape + (d,))
 
     # ---- seed pool with entry points -------------------------------------
     # per-query seeds (coarse-scan entry points, see search.fused._seed_scan)
@@ -319,10 +319,10 @@ def beam_search(
                     (all_d, all_i, all_e), dimension=-1, num_keys=2)
             return (all_i[:, :L], all_d[:, :L], all_e[:, :L], visited, cmps)
 
-        # -- gather neighbor rows (pallas DMA gather) -----------------------
+        # -- gather neighbor rows -------------------------------------------
         cur_c = jnp.minimum(cur, n_total - 1)
         e_sel = cur_c.shape[1]
-        nbrs = gather_rows_any(neighbors, cur_c.reshape(-1)).reshape(
+        nbrs = jnp.take(neighbors, cur_c.reshape(-1), axis=0).reshape(
             B, e_sel, M)                                          # [B, e, M]
         nbrs = jnp.where((cur < n_total)[:, :, None], nbrs, n_total)
         st5 = (cand_ids, cand_d, cand_exp, visited, cmps)
@@ -346,7 +346,7 @@ def beam_search(
             def chunk_step(i, st5):
                 sl = jax.lax.dynamic_slice_in_dim(nbrs1, i * c, c, axis=1)
                 n1 = jnp.minimum(sl, n_total - 1)
-                nb2 = gather_rows_any(neighbors, n1.reshape(-1)).reshape(
+                nb2 = jnp.take(neighbors, n1.reshape(-1), axis=0).reshape(
                     B, c, M)
                 nb2 = jnp.where((sl < n_total)[:, :, None], nb2, n_total)
                 return process(st5, nb2.reshape(B, c * M))
@@ -356,7 +356,7 @@ def beam_search(
             if two_hop:
                 # expand neighbors-of-neighbors: base→query→base
                 n1 = jnp.minimum(nbrs, n_total - 1)
-                nbrs2 = gather_rows_any(neighbors, n1.reshape(-1)).reshape(
+                nbrs2 = jnp.take(neighbors, n1.reshape(-1), axis=0).reshape(
                     B, e_sel * M, M)                              # [B,e*M,M]
                 nbrs2 = jnp.where(
                     (nbrs < n_total).reshape(B, -1, 1), nbrs2, n_total)

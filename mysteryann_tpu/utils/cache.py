@@ -18,10 +18,10 @@ def enable_compile_cache(path: str | None = None,
                          min_compile_secs: float = 1.0) -> None:
     """Turn on JAX's persistent compilation cache (call before first jit).
 
-    The JAX_COMPILATION_CACHE_DIR env var is silently ignored by this
-    JAX build ("cache is disabled/not initialized" — measured: a fresh
-    process paid ~100-200 s of re-compiles per 1M graph build); only the
-    config route initializes it. Default dir: <repo>/.cache/jax.
+    The directory is ``path``, else ``$JAX_COMPILATION_CACHE_DIR`` when
+    set, else <repo>/.cache/jax. It is set through the config route,
+    which initializes the cache whether or not the environment variable
+    was read at import.
     """
     import jax
     if path is None:

@@ -30,15 +30,16 @@ class BuildConfig:
     M_pjbp: int = 35         # projection graph degree bound
     L_pjpq: int = 500        # connectivity-pass search queue length
     metric: str = "ip"       # {"l2", "ip", "cosine"}
-    # TPU batching knobs (no reference analogue — OpenMP picked thread counts)
+    # device batching knobs (no reference analogue — OpenMP picked thread counts)
     query_batch: int = 8192      # phase-A queries pruned per device batch
     search_batch: int = 1024     # phase-D nodes searched per device batch
     connectivity_iters: int = 0  # 0 = auto (fixed 16 rounds)
     # phase-D search engine: "fused" packs the live supply graph into
-    # int8 neighbor-block byte rows each round (one DMA per hop — ~8x
-    # the classic traversal; the prune still uses exact f32 distances);
+    # int8 neighbor-block byte rows each round (one row gather per hop;
+    # the prune still uses exact f32 distances);
     # "classic" traverses f32 vectors directly (no table memory).
-    # "auto" picks fused when the packed table fits the HBM budget
+    # "auto" picks fused when the packed table fits the device-memory
+    # budget
     # (sharded builds resolve "auto" to classic and reject "fused" —
     # see parallel/sharded_build.py's exactness contract).
     connectivity_engine: str = "auto"
@@ -46,7 +47,7 @@ class BuildConfig:
     # - connectivity_expand: closest-unexpanded pops per traversal step
     #   (search/fused.py ``expand``; honored by BOTH engines — the
     #   classic beam accepts the same knob). Total pops stay ~L_pjpq, so
-    #   the DMA bytes are unchanged, but per-step fixed costs (pool
+    #   the gathered bytes are unchanged, but per-step fixed costs (pool
     #   merge, loop overhead) amortize over `expand` expansions — the
     #   phase-D search time lever. Traversal order differs slightly from
     #   expand=1 (the 2nd pop in a step ignores the 1st pop's results),
@@ -55,7 +56,7 @@ class BuildConfig:
     #   kind of expansion history.
     # - connectivity_bits: traversal-row quantization for the repacked
     #   supply table (8 = int8, 4 = packed int4 — half the per-expansion
-    #   DMA bytes and half the table HBM). Fused-only: the classic
+    #   gathered bytes and half the table memory). Fused-only: the classic
     #   engine has no packed table. The prune recomputes exact f32
     #   distances over the collected pool either way, so row bits
     #   affect traversal order only.

@@ -1,6 +1,6 @@
 """Timing utilities.
 
-TPU-native analogue of the reference's accumulate-and-print ``TimeMetric``
+Counterpart of the reference's accumulate-and-print ``TimeMetric``
 (reference include/efanna2e/util.h:240-264) plus a context-manager Timer.
 All timers call ``block_until_ready`` hooks only if asked — JAX dispatch is
 async, so wall-clocking device work requires an explicit sync.

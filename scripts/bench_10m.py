@@ -173,8 +173,7 @@ def main():
 
 def _sharded_fused_rows(base, eval_q, gt_i, key, mp):
     """10M graph serving through the mp-sharded fused byte-row engine
-    (VERDICT r4 #8). A bits=4 M=32 table is 3 KB/row -> 28.6+ GB at 10M
-    (never fits one v5e); row-sharded over ``mp`` chips each shard is
+    A bits=4 M=32 table is 3 KB/row -> 28.6+ GB at 10M; row-sharded over ``mp`` chips each shard is
     (n/mp + 1) x 3 KB ~= 3.84 GB at mp=8 (shape math pinned in
     tests/test_sharded_fused.py::test_10m_shard_packing_math). On real
     multi-chip hardware this is the one command that lands the 10M

@@ -1,10 +1,9 @@
-"""4M-class single-chip fused-graph serving proof (VERDICT r2 item 4).
+"""4M-class single-device fused-graph serving run.
 
-The fused byte-row engine is the sublinear serving mode of record at 1M;
-at 10M its table outgrows one chip (bits=4, M=32 → 28.6 GB) and serving
-shards over ``mp`` (parallel/sharded_fused.py, dryrun stage 7). This
-script proves the single-chip engine at the LARGEST scale one v5e can
-hold: 4M nodes → 12.3 GB table (bits=4, max_degree=32) + 2 GB f32
+The fused byte-row engine is the sublinear serving mode at 1M; at 10M
+its table grows to 28.6 GB (bits=4, M=32) and serving can shard over
+``mp`` (parallel/sharded_fused.py). This script serves the single-device
+engine at 4M nodes: 12.3 GB table (bits=4, max_degree=32) + 2 GB f32
 rerank base + seed sample ≈ 14.6 GB.
 
 Pipeline: v3-difficulty world at 4M (seed 23) → exact GT → train kNN →
@@ -21,6 +20,7 @@ import os
 import sys
 import time
 
+import jax
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -81,7 +81,7 @@ def main():
     log("== train kNN ==")
     (knn,) = npz_cached(CACHE, f"{gkey}_knn", lambda: [exact_knn(
         train_q, base, k=M_SQ, metric="ip", query_batch=8192,
-        base_tile=131072, approx=True)[1].astype(np.int32)])
+        base_tile=131072)[1].astype(np.int32)])
 
     index_path = os.path.join(CACHE, f"{gkey}_p{args.passes}_proj.index")
     build_secs = None
@@ -99,9 +99,7 @@ def main():
                           connectivity_passes=args.passes,
                           connectivity_expand=4)
         from mysteryann_tpu.ops.distances import prepare_vectors
-        base_staged = prepare_vectors(base, "ip")
-        from mysteryann_tpu.utils.fence import fence
-        fence(base_staged)  # true completion barrier (uploads under-block)
+        base_staged = jax.block_until_ready(prepare_vectors(base, "ip"))
         t0 = time.time()
         index = build_roargraph(
             base_staged, train_q, knn, cfg, verbose=True,

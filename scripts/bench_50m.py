@@ -1,9 +1,7 @@
 """50M-scale serving: the regime where int8 IVF cluster blocks win.
 
-At 50M x 128d the f32 corpus is 25.6 GB — it cannot be resident on a
-16 GB chip, so the champion of every smaller scale (the flat f32 MXU
-scan, scripts/bench_10m.py) is out of the game single-chip. The two
-viable single-chip modes are compared here on the device-generated
+At 50M x 128d the f32 corpus is 25.6 GB. This script compares two
+int8-resident single-device modes on the device-generated
 corpus (io/synthetic.py CrossModalDeviceSpec — no host copy of the
 corpus ever exists; every row is a function of its index):
 
@@ -19,8 +17,7 @@ REGENERATED from ids on device, inside the timed region — reported
 distances are exact f32 and recall is vs exact streamed GT.
 
 The reference has no >16M run (its largest is T2I-10M,
-run_roargraph_test.sh); this is TPU-native surface beyond it, closing
-VERDICT r1 item 6 with a measured crossover instead of a claim.
+run_roargraph_test.sh); this is surface beyond it.
 
 Run: python scripts/bench_50m.py [--n_base 50000000]. One JSON line.
 """
@@ -80,7 +77,6 @@ def main():
                                         int8_global_knn_device,
                                         quantize_rows_int8)
     from mysteryann_tpu.utils.metrics import compute_recall, compute_rderr
-    from mysteryann_tpu.utils.fence import fence
 
     # v3 world geometry (difficulty calibrated at 1M against the
     # reference binary — BASELINE.md "Workload history"); the
@@ -130,9 +126,8 @@ def main():
             bd, bi = merge_topk(bd, bi, nd, ni + st, K)
             if it % 4 == 3:
                 # bound in-flight tiles (same fix as the fill loop —
-                # queued generate+scan iterations exhaust HBM); a tiny
-                # readback is the only reliable fence on this rig
-                np.asarray(bd[0, 0])
+                # queued generate+scan iterations exhaust memory)
+                jax.block_until_ready(bd)
         bd.block_until_ready()
         gt_i, gt_d = np.asarray(bi).astype(np.int64), np.asarray(bd)
         np.savez(gt_path, ids=gt_i, dists=gt_d)
@@ -159,13 +154,13 @@ def main():
             raise ValueError(f"n_eval ({N_EVAL}) must divide the query "
                              f"batch ({qb})")
         outs = [search_fn(jax.lax.dynamic_slice_in_dim(eval_q, 0, qb))]
-        fence(outs[0])                                  # warmup + compile
+        jax.block_until_ready(outs[0])                  # warmup + compile
         outs = []
         t0 = time.perf_counter()
         for s in range(0, N_EVAL, qb):
             outs.append(search_fn(
                 jax.lax.dynamic_slice_in_dim(eval_q, s, qb)))
-        fence(outs[-1])
+        jax.block_until_ready(outs)
         dt = time.perf_counter() - t0
         ids = np.concatenate([np.asarray(o[0]) for o in outs])
         dists = np.concatenate([np.asarray(o[1]) for o in outs])

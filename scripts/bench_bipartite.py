@@ -15,6 +15,7 @@ import os
 import sys
 import time
 
+import jax
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -41,7 +42,6 @@ def main():
     from mysteryann_tpu.graph.bipartite import (BipartiteSearcher,
                                                 build_bipartite)
     from mysteryann_tpu.utils.metrics import compute_recall, compute_rderr
-    from mysteryann_tpu.utils.fence import fence
     from mysteryann_tpu.utils.params import BuildConfig
 
     smoke = "--smoke" in sys.argv[1:]
@@ -86,13 +86,12 @@ def main():
     rows = []
     for L in Ls:
         qb = min(qbmax, eval_q.shape[0])
-        # warm (compile), then device-timed: results stay on device and
-        # the region ends with a 4-byte fence download (bench.py method)
-        fence(s.search(eval_q[:qb], k=K, L=L, query_batch=qb,
-                       device_out=True))
+        # warm (compile), then device-timed: results stay on device
+        jax.block_until_ready(s.search(eval_q[:qb], k=K, L=L,
+                                       query_batch=qb, device_out=True))
         t0 = time.time()
         out = s.search(eval_q, k=K, L=L, query_batch=qb, device_out=True)
-        fence(out)
+        jax.block_until_ready(out)
         dt = time.time() - t0
         ids, dists, cmps, hops = (np.asarray(o) for o in out)
         rows.append({

@@ -18,7 +18,7 @@ then the L sweep; pass --Ls to refine around the crossing).
 
 Pipeline per config: generate world (io/synthetic.make_cross_modal, the
 same generator bench.py uses) -> exact train kNN + in-world eval GT on
-the TPU (ops/knn) -> export fbin/ibin -> reference build + search sweep
+the device (ops/knn) -> export fbin/ibin -> reference build + search sweep
 (baseline/bench_reference) -> report the .95 crossing. Artifacts land in
 --workdir keyed by the config, so re-runs reuse the build. When the
 config matches bench.py's v3 constants, cached .bench_cache npz
@@ -81,7 +81,7 @@ def load_or_make(args):
                            base_tile=131072, precision="highest"))))
     (knn,) = npz_cached(CACHE, key + "_knn", lambda: [exact_knn(
         train, base, k=args.M_sq, metric="ip", query_batch=8192,
-        base_tile=131072, approx=True)[1]])
+        base_tile=131072)[1]])
     return key, base, train, eval_q, knn, gt_i.astype(np.int32)
 
 

@@ -1,9 +1,7 @@
 """One-load multi-config fused-engine probe at 1M (v3 world, p3 index).
 
-The L + expand*M pool width crosses a 256-lane tile boundary just past
-L=64 at (48-wide rows, expand=4) — QPS cliffs from ~56k to ~43k. This
-probe sweeps the remaining recall levers at the fast side of the cliff
-(denser seed sample, more seeds, expand=3 with a wider L, pool-mode
+This probe sweeps the recall levers of the seeded fused engine (denser
+seed sample, more seeds, expand=3 with a wider L, pool-mode
 bitonic maintenance) sharing one table pack + one index load, so each
 config costs only its compile + timed runs.
 
@@ -58,8 +56,8 @@ CONFIGS = {
     "ss2_s24_low": (2, dict(expand=4, seeds=24), [32, 36, 40]),
     # 1-in-3 sample: 2/3 the scan FLOPs of ss2 at (maybe) similar recall
     "ss3_low": (3, dict(expand=4, seeds=40), [44, 48, 52, 56, 60]),
-    # int4 traversal rows (bits=4 table): half the per-expansion DMA
-    # bytes — the measured graph-QPS bound — for coarser traversal
+    # int4 traversal rows (bits=4 table): half the per-expansion gather
+    # bytes for coarser traversal
     # distances; rerank=4k keeps the reported head exact
     "b4_ss2": (2, dict(expand=4, seeds=48, _bits=4), [48, 56, 64]),
     "b4_ss4": (4, dict(expand=4, seeds=48, _bits=4), [64, 80, 100]),

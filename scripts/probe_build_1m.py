@@ -1,4 +1,4 @@
-"""Probe phase-D build-speed knobs at 1M (VERDICT r2 item 2: beat the
+"""Probe phase-D build-speed knobs at 1M (goal: beat the
 reference's 768 s single-core v3 build at an equal-or-better frontier).
 
 Builds the bench workload's 2-pass index with configurable
@@ -21,6 +21,7 @@ import statistics
 import sys
 import time
 
+import jax
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -97,13 +98,11 @@ def main():
                           connectivity_bits=args.bits,
                           connectivity_seeds=args.build_seeds,
                           connectivity_seed_sample=args.build_seed_sample)
-        # reference timer parity: data staged in working memory (HBM)
-        # before the clock, like bench_reference.cpp loads into RAM
-        # before BuildRoarGraph
+        # reference timer parity: data staged in device memory before
+        # the clock, like bench_reference.cpp loads into RAM before
+        # BuildRoarGraph
         from mysteryann_tpu.ops.distances import prepare_vectors
-        base_staged = prepare_vectors(base, "ip")
-        from mysteryann_tpu.utils.fence import fence
-        fence(base_staged)  # true completion barrier (uploads under-block)
+        base_staged = jax.block_until_ready(prepare_vectors(base, "ip"))
         t0 = time.time()
         index = build_roargraph(
             base_staged, train_q, knn, cfg, verbose=True,

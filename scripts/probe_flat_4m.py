@@ -1,12 +1,10 @@
 """Measure the flat serving modes at 4M (completes the 4M story).
 
-BASELINE.md's 4M section proves the sublinear fused-graph engine
-(15.0k @ .9598) and now carries the measured CPU reference bar
-(run_baseline_4m.py); this probe adds the flat rows on the same cached
-world — at 4M the f32 corpus is 2 GB and the flat MXU scan should
-remain the outright serving champion (the graph rows are the >HBM-scale
-engine proof). Rows: flat f32 (tile=n), flat bf16-resident. Ramp-
-discarded median-of-5, identical protocol to bench.py.
+BASELINE.md's 4M section has the fused-graph recall and the measured CPU
+reference bar (run_baseline_4m.py); this probe adds the flat rows on the
+same cached world (the f32 corpus is 2 GB at 4M). Rows: flat f32, flat
+bf16-resident. Ramp-discarded median-of-5, identical protocol to
+bench.py.
 """
 
 import json

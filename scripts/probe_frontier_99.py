@@ -1,5 +1,5 @@
 """High-recall frontier probe: extend the seeded fused-graph sweep to
-recall@10 >= .99 on the v3 1M world (VERDICT r3 next #6).
+recall@10 >= .99 on the v3 1M world.
 
 Loads the cached 2-pass p2e4b4 index and walks configs upward in L until
 the frontier crosses .99, median-of-3 per row. Reference sweep protocol:

@@ -53,7 +53,7 @@ def main():
     t0 = time.time()
     (knn,) = npz_cached(CACHE, KEY + "_knn", lambda: [exact_knn(
         train_q, base, k=M_SQ, metric=METRIC, query_batch=8192,
-        base_tile=131072, approx=True)[1]])
+        base_tile=131072)[1]])
     log(f"train knn: {time.time() - t0:.1f}s")
     log("done")
 

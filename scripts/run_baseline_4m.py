@@ -1,4 +1,4 @@
-"""Measure the CPU reference (baseline/bench_reference) at 4M (VERDICT r4 #4).
+"""Measure the CPU reference (baseline/bench_reference) at 4M.
 
 The 4M fused-graph row (BASELINE.md "4M scale") was compared against
 nothing: the reference bar had only ever been measured at 1M. This
@@ -73,7 +73,7 @@ def main():
         base_tile=131072, precision="highest"))[::-1])
     (knn,) = npz_cached(CACHE, f"{GKEY}_knn", lambda: [exact_knn(
         train_q, base, k=M_SQ, metric="ip", query_batch=8192,
-        base_tile=131072, approx=True)[1].astype(np.int32)])
+        base_tile=131072)[1].astype(np.int32)])
 
     def export(path, fn):
         if not os.path.exists(path):

@@ -4,7 +4,7 @@ Round-1 measurements showed each extra phase-D pass keeps lifting the
 recall frontier (1-pass .794, 2-pass .865, 3-pass .889 at L=100; see
 BASELINE.md). A better graph needs a smaller L for the same recall, and
 the fused engine's cost is ~L-proportional — so the 3-pass index may
-move the graph-engine QPS-at-.95 point well past the 2-pass 28k row.
+move the graph-engine QPS-at-.95 point past the 2-pass index's.
 This script builds the 3-pass index (cached) and sweeps the seeded
 fused searcher to find that point.
 

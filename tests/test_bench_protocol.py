@@ -1,11 +1,8 @@
-"""Pin bench.py's measurement protocol (ramp-discard plateau medians).
+"""Pin bench.py's measurement protocol (ramp-discard medians).
 
-The protocol is load-bearing for every record row in BASELINE.md: a
-fresh device context ramps over the first few trials and the first
-trial after a compile often lands a high-share window on a time-sliced
-chip (BASELINE.md "Serving-variance root cause"), so the headline QPS
-must be the median over post-ramp plateau trials only, with the ramp
-trials recorded separately as capability evidence.
+The first trials after a compile warm caches and allocators, so the
+headline QPS is the median over the post-ramp trials only, with the
+ramp trials recorded separately.
 """
 
 import sys
@@ -37,7 +34,7 @@ def _fake_bench_fn(qps_sequence):
 
 
 def test_ramp_trials_excluded_from_median():
-    # 2 ramp trials (one a high-share burst) then a 3-trial plateau:
+    # 2 ramp trials (one an outlier burst) then a 3-trial plateau:
     # the median must come from the plateau only.
     seq = [300_000.0, 10_000.0, 40_000.0, 41_000.0, 42_000.0]
     fn, ids, dists, calls = _fake_bench_fn(seq)
@@ -63,11 +60,11 @@ def test_row_metrics_attached_and_arrays_stripped():
 
 
 def test_headline_is_compact_and_tags_provisional():
-    # VERDICT r4 #1: the driver records a bounded stdout tail and may
-    # kill the run mid-build — bench.py prints a PROVISIONAL headline
-    # right after the flat rows (no index needed) so a timeout still
-    # leaves the contract number in the artifact. Both the provisional
-    # and final lines must be compact and carry vs_baseline.
+    # a caller may record only a bounded stdout tail and may kill the
+    # run mid-build — bench.py prints a PROVISIONAL headline right after
+    # the flat rows (no index needed) so a timeout still leaves the
+    # number in the tail. Both the provisional and final lines must be
+    # compact and carry vs_baseline.
     prov = bench._headline(70729.5, 25418.0,
                            {"mode": "flat", "recall": 0.9866},
                            provisional=True)
@@ -77,20 +74,19 @@ def test_headline_is_compact_and_tags_provisional():
     final = bench._headline(70729.5, 25418.0, {"mode": "flat"})
     assert "provisional" not in final
     import json
-    assert len(json.dumps(final)) < 600  # fits the driver's bounded tail
+    assert len(json.dumps(final)) < 600  # fits a bounded output tail
 
     # zero/absent baseline must not divide by zero
     assert bench._headline(1.0, 0.0, {})["vs_baseline"] == 0.0
 
 
 def test_bench_repeats_default_is_median_of_five():
-    # VERDICT r4 weak #3: widen headline rows to median-of-5
+    # headline rows are medians of five post-ramp trials
     assert bench.REPEATS == 5
 
 
 def test_bench_rows_carry_sorted_trials():
-    # two-window pooling (bench.py "flat window 2") medians over the
-    # concatenated per-window trial lists — rows must expose them
+    # rows expose their sorted post-ramp trials next to the median
     seq = [9.0, 9.0, 30.0, 10.0, 20.0]
     fn, ids, dists, _ = _fake_bench_fn(seq)
     row = bench._bench_median(fn, ids, dists, k=10, repeats=3, ramp=2)

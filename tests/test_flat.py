@@ -1,4 +1,4 @@
-"""Flat MXU index: exactness, metrics, benchmark schema."""
+"""Flat index: exactness, metrics, benchmark schema."""
 
 import numpy as np
 import pytest
@@ -79,36 +79,6 @@ def test_flat_k_exceeds_corpus_raises():
         FlatIndex(base, metric="ip").search(q, k=10)
 
 
-def test_flat_scan_mode():
-    """precision='scan' (fused binned-scan kernel, interpret off-TPU):
-    near-exact recall at small n (few bin collisions), exact f32 dists,
-    uneven query counts padded to the kernel block."""
-    from mysteryann_tpu.ops import compute_ground_truth
-
-    base, _ = make_cross_modal(20000, 100, 128, metric="ip", seed=9)
-    queries = make_cross_modal(20000, 300, 128, metric="ip", seed=9,
-                               query_seed=41)[1]
-    gt_i, gt_d = compute_ground_truth(queries, base, k=10, metric="ip")
-    idx = FlatIndex(base, metric="ip", precision="scan", oversample=2)
-    ids, dists = idx.search(queries, k=10, query_batch=300)
-    assert ids.shape == (300, 10)
-    rec = compute_recall(ids, gt_i.astype(np.int64), 10)
-    assert rec >= 0.97, rec
-    # reported dists are the exact f32 rerank of the returned ids
-    sel = np.take_along_axis(
-        -(queries @ base.T), ids.astype(np.int64), axis=1)
-    np.testing.assert_allclose(dists, sel, rtol=0, atol=1e-4)
-
-
-def test_flat_scan_mode_validation():
-    base, q = make_cross_modal(2000, 10, 48, metric="ip", seed=9)
-    with pytest.raises(ValueError, match="dim % 128"):
-        FlatIndex(base, metric="ip", precision="scan")
-    base2, _ = make_cross_modal(2000, 10, 128, metric="l2", seed=9)
-    with pytest.raises(ValueError, match="ip/cosine"):
-        FlatIndex(base2, metric="l2", precision="scan")
-
-
 def test_flat_bf16_matches_exact():
     import numpy as np
     from mysteryann_tpu.io import make_cross_modal
@@ -142,3 +112,31 @@ def test_flat_bf16_l2():
     ids, _ = idx.search(queries, k=10, query_batch=100)
     rec = compute_recall(ids, gt_i.astype(np.int64), 10)
     assert rec >= 0.98, rec
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_rerank_is_exact_f32_at_dim_200(metric):
+    """The head rerank runs at Precision.HIGHEST: at d=200 its distances
+    match float64 numpy to f32 rounding (a TF32 or bf16 pass would miss
+    by ~1e-3 relative)."""
+    import jax.numpy as jnp
+    from mysteryann_tpu.flat import _rerank_f32
+    from mysteryann_tpu.ops.distances import Metric
+    rng = np.random.default_rng(4)
+    base = rng.standard_normal((2000, 200)).astype(np.float32)
+    q = rng.standard_normal((16, 200)).astype(np.float32)
+    cand = rng.integers(0, 2000, (16, 30)).astype(np.int32)
+    d, i = _rerank_f32(jnp.asarray(base), jnp.asarray(q), jnp.asarray(cand),
+                       5, Metric.parse(metric))
+    b64, q64 = base.astype(np.float64), q.astype(np.float64)
+    vec = b64[cand]
+    if metric == "ip":
+        full = -np.einsum("bd,bkd->bk", q64, vec)
+    else:
+        full = ((q64[:, None, :] - vec) ** 2).sum(-1)
+    order = np.argsort(full, axis=1, kind="stable")[:, :5]
+    np.testing.assert_allclose(np.asarray(d),
+                               np.take_along_axis(full, order, axis=1),
+                               rtol=2e-6, atol=2e-4)
+    np.testing.assert_array_equal(np.asarray(i),
+                                  np.take_along_axis(cand, order, axis=1))

@@ -153,3 +153,53 @@ def test_incremental_repack_bit_identical(bits):
     inc = _repack_changed(jnp.copy(table), base, jnp.asarray(sup1),
                           changed, n, Mt, d, bits, blk=4)
     np.testing.assert_array_equal(np.asarray(inc), np.asarray(full))
+
+
+@pytest.mark.parametrize("metric", ["ip", "l2"])
+def test_seed_scan_matches_oracle(rng, metric):
+    """The tiled seed scan (3 tiles + remainder) returns the sample
+    members nearest to each query under its bf16 scores."""
+    import jax.numpy as jnp
+    from mysteryann_tpu.search.seeding import make_seed_sample, seed_scan
+    base = rng.standard_normal((3000, 16)).astype(np.float32)
+    q = rng.standard_normal((9, 16)).astype(np.float32)
+    samp, samp_sq, samp_ids = make_seed_sample(jnp.asarray(base), 2)
+    ids, dists = seed_scan(samp, samp_sq, samp_ids, jnp.asarray(q),
+                           n_seeds=6, metric=metric, tile=400)
+    sb = np.asarray(samp.astype(jnp.float32), np.float64)
+    qb = np.asarray(jnp.asarray(q).astype(jnp.bfloat16).astype(jnp.float32),
+                    np.float64)
+    ip = qb @ sb.T
+    if metric == "ip":
+        d = -ip
+    else:
+        d = np.maximum((q.astype(np.float64) ** 2).sum(1)[:, None] - 2 * ip
+                       + np.asarray(samp_sq, np.float64)[None, :], 0)
+    want = np.argsort(d, axis=1, kind="stable")[:, :6] * 2   # sample ids
+    np.testing.assert_array_equal(np.sort(np.asarray(ids), 1),
+                                  np.sort(want, 1))
+    np.testing.assert_allclose(np.asarray(dists),
+                               np.sort(d, axis=1)[:, :6], rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_fused_at_dim_200_exact_recall():
+    """d=200 (the reference's T2I width, not a multiple of 128): the
+    fused engine packs 200-byte rows and its exact f32 rerank reports
+    distances equal to float64 numpy's for the returned ids."""
+    base, train_q = make_cross_modal(3000, 1200, 200, metric="ip", seed=5)
+    _, eval_q = make_cross_modal(10, 200, 200, metric="ip", seed=5,
+                                 query_seed=6)
+    _, knn = exact_knn(train_q, base, k=24, metric="ip", precision="highest")
+    cfg = BuildConfig(M_sq=24, M_pjbp=12, L_pjpq=48, metric="ip",
+                      query_batch=512, search_batch=512,
+                      connectivity_iters=4)
+    index = build_roargraph(base, train_q, knn, cfg, verbose=False)
+    _, gt = exact_knn(eval_q, base, k=10, metric="ip", precision="highest")
+    fused = FusedSearcher(index, base, seed_sample=2)
+    ids, dists, _, _ = fused.search(eval_q, k=10, L=64, query_batch=200,
+                                    expand=2, seeds=16)
+    assert compute_recall(ids, gt, 10) > 0.9
+    ref = -np.einsum("bd,bkd->bk", eval_q.astype(np.float64),
+                     base.astype(np.float64)[ids])
+    np.testing.assert_allclose(dists, ref, rtol=1e-5, atol=1e-5)

@@ -3,8 +3,9 @@
 The sharded build (parallel/sharded_build.py) must produce the SAME
 adjacency as graph.build_roargraph — the only arithmetic difference is
 owner-masked psum gathers, which add zeros to the owner's value and are
-therefore bit-exact (module docstring). These tests pin that contract on
-the 8-device virtual CPU mesh.
+therefore bit-exact on the CPU (module docstring; GPUs round some
+distances differently). These tests pin that contract on the 8-device
+virtual CPU mesh.
 """
 
 import numpy as np

@@ -98,13 +98,13 @@ def test_10m_shard_packing_math():
     n, d, M, bits, mp = 10_000_000, 128, 32, 4, 8
     R = _row_bytes(M, d, bits)
     # 32 int4 neighbors x 128d = 2048 B payload + 32 ids x 8 B = 2304 B,
-    # padded to the 1 KB DMA tile multiple
+    # padded to the 1 KB row multiple
     assert R == 3072
     sn = -(-n // mp)
     assert sn == 1_250_000                    # rows per shard (exact split)
     shard_bytes = (sn + 1) * R                # +1 local sentinel row
     assert shard_bytes == 3_840_003_072       # ~3.84 GB/shard
-    assert shard_bytes < 11 << 30             # fits one v5e's usable HBM
+    assert shard_bytes < 11 << 30             # well inside one device
     assert mp * sn >= n
     # global-id -> owner/local round trip at the shard edges
     for gid in (0, sn - 1, sn, n - 1):
